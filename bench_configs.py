@@ -197,8 +197,8 @@ def bench_variation_ramping():
 def bench_ont_tier():
     """ONT-error tier (VERDICT r4 item 7): the CHECKED-IN ~18%-total-
     error fixture (tests/make_fixture_ont.py, reference-binary goldens
-    in tests/fixtures/ont, TPU-verified by tests/test_ont.py /
-    verify_tpu.py) at the ramping config — uniform ONT-class error is
+    in tests/fixtures/ont, verified on the GPU by tests/test_ont.py /
+    chip_smoke.py) at the ramping config — uniform ONT-class error is
     the regime the HMM constants assume
     (AlignmentCorrectnessEstimation.cpp:6-8), so this measures
     ramping-heavy steady-state throughput, not burst recovery."""

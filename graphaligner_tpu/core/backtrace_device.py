@@ -2,12 +2,13 @@
 
 The reference walks the DP table cell-by-cell on the CPU
 (pickBacktracePredecessor / getTraceFromTable, GraphAligner.h:493-591,
-894-1021). On this framework's remote-TPU deployment the packed DP
-columns live in device HBM, and shipping them to the host (~130 KB/read)
-costs far more than the walk itself — so the walk runs on device, one
-`lax.scan` step per trace position with every lane advancing in
-lockstep, and only the final (graph position, read row) trace pairs
-(~5 KB/read) cross the link.
+894-1021). Here the packed DP columns live in device memory, and
+shipping them to the host (~130 KB/read) would cost more than the walk
+itself — so the walk runs on device, one loop step per trace position
+with every lane advancing in lockstep, and only the final (graph
+position, read row) trace pairs (~5 KB/read) cross to the host. It is
+the plain-XLA alternative to the move-walk kernel
+(ops.pallas.walk_moves) for single-window walks.
 
 The predecessor priority order is the reference's, replicated as masked
 selects: the row-0 free-start stop, then per in-neighbor (adjacency
@@ -19,8 +20,7 @@ getInitialSliceOnlyOneNode) is synthesized arithmetically: score 0 on
 the seed node, absent elsewhere.
 
 Array layouts keep the batch as the last axis ([K, Nm, B] bands,
-[7, B, K*Cm] columns) so every vector op tiles the TPU's 128-lane
-registers; see engine_banded's layout note.
+[7, B, K*Cm] columns); see engine_banded's layout note.
 
 Like the host backtrace, a lane that takes no legal predecessor (or
 exceeds the step budget) raises a per-lane fail flag and falls back to

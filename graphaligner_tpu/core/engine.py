@@ -1,17 +1,17 @@
-"""Batched TPU alignment engine (v1: exhaustive mode).
+"""Batched device alignment engine (v1: exhaustive mode).
 
-TPU-first redesign of the reference's alignment core. Where the
+Batched redesign of the reference's alignment core. Where the
 reference packs 64 DP cells into one CPU word and processes one read per
 thread (WordSlice.h, Aligner.cpp:290), this engine processes a *batch*
 of reads at once: each graph-position step advances a [batch, 64] score
-column with a handful of vector ops, so one VPU op covers
+column with a handful of vector ops, so one vector op covers
 batch × 64 cells. The 64-row column advance uses a prefix-min identity
 instead of Myers' carry tricks:
 
     cur[r] = min_{k<=r}(base[k] + r - k)  =  cummin(base[k] - k)[r] + r
 
 which runs all 64 rows of the vertical closure in parallel — the
-TPU-native equivalent of the reference's bit-parallel `getNextSlice`
+batched equivalent of the reference's bit-parallel `getNextSlice`
 (GraphAligner.h:1349-1427).
 
 v1 computes in "exhaustive mode": every graph position is active in
@@ -58,6 +58,23 @@ _ENCODE_LUT = np.full(256, 255, dtype=np.uint8)
 for _c, _i in _READ_CODE.items():
     _ENCODE_LUT[ord(_c)] = _i
     _ENCODE_LUT[ord(_c.lower())] = _i
+
+
+def build_eq_vectors(read_codes: np.ndarray, match_table: np.ndarray, num_slices: int):
+    """Per-slice per-graph-code Eq bitvectors (reference BA/BT/BC/BG,
+    GraphAligner.h:2337-2351), host-side, for the wavefront engine.
+
+    read_codes [B, S*64] uint8 → eq [S, 5, 2, B] uint32 (lo, hi)."""
+    B = read_codes.shape[0]
+    eq = np.zeros((num_slices, 5, 2, B), dtype=np.uint32)
+    match_rows = match_table[read_codes]  # [B, S*64, 5]
+    bits_lo = (1 << np.arange(32, dtype=np.uint64)).astype(np.uint32)
+    for s in range(num_slices):
+        rows = match_rows[:, s * WORD_SIZE : (s + 1) * WORD_SIZE, :]  # [B,64,5]
+        for c in range(5):
+            eq[s, c, 0] = (rows[:, :32, c] * bits_lo).sum(axis=1, dtype=np.uint32)
+            eq[s, c, 1] = (rows[:, 32:, c] * bits_lo).sum(axis=1, dtype=np.uint32)
+    return eq
 
 
 def encode_read(sequence: str) -> np.ndarray:
@@ -129,7 +146,7 @@ def build_schedule(graph: AlignmentGraph) -> DeviceSchedule:
 
 def _cummin_rows(x, ar_like):
     """Prefix-min along axis 0 (the 64-row axis) via log-shifts; rows are
-    the major axis so every shift is a cheap sublane move."""
+    the major axis so every shift moves whole rows."""
     import jax.numpy as jnp
 
     k = 1
@@ -159,8 +176,8 @@ def _align_batch_device(
     cyclic: bool = False,
     max_passes: int = 128,
 ):
-    """Layout note: score columns are [64 rows, batch] so the batch rides
-    the 128-wide lane dimension and the 64 rows the sublanes."""
+    """Layout note: score columns are [64 rows, batch] so the batch is
+    the contiguous minor axis."""
     import jax
     import jax.numpy as jnp
 
@@ -402,7 +419,6 @@ class BatchAligner:
             # wavefront schedule assumes forward-only dependencies)
             backend = "column"
         if backend == "wavefront":
-            from ..ops.pallas.exhaustive import _build_eq_vectors
             from .engine_wave import (
                 _align_batch_wavefront,
                 build_skewed_schedule,
@@ -411,7 +427,7 @@ class BatchAligner:
 
             P = len(self.sched.cell_pos)
             sk = build_skewed_schedule(self.sched, S)
-            eq = _build_eq_vectors(codes, _MATCH_TABLE, S)
+            eq = build_eq_vectors(codes, _MATCH_TABLE, S)
             out = _align_batch_wavefront(
                 jnp.asarray(eq),
                 *[jnp.asarray(x) for x in sk[:5]],

@@ -5,8 +5,8 @@ sequential depth is num_slices × num_positions. This engine skews the
 computation: at wave τ, slice s processes graph column τ-s, so all
 slices advance simultaneously and the depth drops to
 num_positions + num_slices — an S-fold cut in sequential steps, which is
-what bounds throughput on TPU (per-step loop overhead dominates the
-tiny per-column vector work).
+what bounds throughput when per-step loop overhead dominates the tiny
+per-column vector work.
 
 The wavefront is legal because slice s's column t needs only
 (s, t-1) — same wave, previous step — and (s-1, t) — the previous wave's
@@ -20,7 +20,7 @@ Node-start columns expand their in-neighbor columns to score space,
 advance, min-fold with the boundary column, re-close vertically with a
 prefix-min, and re-pack — the reference's getNodeStartSlice +
 mergeTwoSlices (GraphAligner.h:1270-1315, WordSlice.h:361-421) in a
-VPU-friendly form.
+vector-friendly form.
 
 Outputs are identical to core.engine._align_batch_device.
 """

@@ -309,7 +309,7 @@ def parse_gfa(data: bytes):
 
 def decode_moves(moves, start_w, start_row, node_start, node_end, pos_to_node,
                  in_nbrs, cap):
-    """Decode a packed 4-bit move stream (TPU walk kernel) into a forward
+    """Decode a packed 4-bit move stream (the move-walk kernel) into a forward
     [n, 2] (graph position, read row) trace; None if the native library is
     unavailable; raises ValueError on a malformed stream."""
     lib = get_lib()

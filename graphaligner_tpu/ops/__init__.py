@@ -1,1 +1,2 @@
-"""Compute kernels (reference L2 inner loops, TPU-first redesigns)."""
+"""Compute kernels (reference L2 inner loops, batched redesigns) and the
+per-platform kernel choice (ops.kernels)."""

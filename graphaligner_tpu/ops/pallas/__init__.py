@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the alignment hot loops."""
+"""Pallas GPU kernels (Triton route) for the alignment hot loops."""

@@ -1,6 +1,7 @@
-"""Bit-parallel word operations on uint32 pairs (TPU-native 64-bit words).
+"""Bit-parallel word operations on uint32 pairs (64-bit words as pairs).
 
-TPUs have no native 64-bit integers, so the reference's 64-bit DP words
+The device program runs without 64-bit types (no x64), so the
+reference's 64-bit DP words
 (WordSlice.h) become (lo, hi) uint32 pairs; every op here is elementwise
 over arbitrary batch shapes and works identically under XLA and inside
 Pallas kernels.
@@ -41,7 +42,10 @@ _ONES = np.uint32(0xFFFFFFFF)
 
 
 def popcount32(x):
-    return jax.lax.population_count(x)
+    """uint32 popcount, taken on the int32 bit pattern: Triton lowers the
+    int32 form to the CUDA popc instruction and has no rule for uint32."""
+    pc = jax.lax.population_count(jax.lax.bitcast_convert_type(x, jnp.int32))
+    return pc.astype(jnp.uint32)
 
 
 def popcount64(lo, hi):

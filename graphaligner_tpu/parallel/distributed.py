@@ -17,14 +17,30 @@ import os
 from ..io import stream, vg
 
 
+def gpu_local_device(process_id: int, environ=os.environ) -> int:
+    """The one card a GPU process opens, from the launcher's
+    CUDA_VISIBLE_DEVICES: its only entry, or with n entries the process
+    id modulo n (processes numbered host-major, n per host)."""
+    visible = [v for v in environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if v.strip()]
+    if not visible:
+        raise ValueError(
+            "multi-process on GPUs: set CUDA_VISIBLE_DEVICES for each "
+            "process (its card, or the host's cards)"
+        )
+    return process_id % len(visible)
+
+
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> tuple:
-    """Bring up jax.distributed (no-op for single-process runs).
+    """Bring up jax.distributed (no-op for single-process runs). On a GPU
+    every process opens exactly one card (gpu_local_device).
 
     Returns (process_index, process_count)."""
     import jax
 
     if coordinator_address is not None:
+        kw = {}
         if "cpu" in os.environ.get("JAX_PLATFORMS", ""):
             # CPU multi-process needs the gloo collectives client or the
             # backend stays single-process (process_count() == 1)
@@ -34,10 +50,13 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
                 )
             except Exception:
                 pass
+        else:
+            kw["local_device_ids"] = [gpu_local_device(process_id)]
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            **kw,
         )
     return jax.process_index(), jax.process_count()
 

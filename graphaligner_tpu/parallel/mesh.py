@@ -61,7 +61,7 @@ def shard_reads_aligner(graph, mesh, axis: str = "dp"):
 
 
 def shard_banded_scan(graph, mesh, Nm: int = 8, Cm: int = 64, axis: str = "dp"):
-    """One banded DP round (core.engine_banded._banded_scan) sharded over
+    """One banded DP round (core.engine_banded.banded_scan) sharded over
     the mesh: the problem batch is split along `axis` via shard_map, the
     graph tables are replicated, and every lane's band scan runs entirely
     on its device (zero collectives — the multi-chip layout mirrors the
@@ -70,83 +70,21 @@ def shard_banded_scan(graph, mesh, Nm: int = 8, Cm: int = 64, axis: str = "dp"):
     Returns (tables, run) where run(codes, seq_lens, steps, start, bw,
     *seed_carry, S_max=...) -> the banded_scan output dict with the batch
     axis sharded."""
-    import functools
-
-    import jax
-    from jax.sharding import PartitionSpec as P
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    from ..core.engine import _MATCH_TABLE
-    from ..core.engine_banded import _banded_scan, build_graph_tables
+    from ..core.engine_banded import banded_scan, build_graph_tables
+    from ..ops.kernels import select_kernels
 
     tables = build_graph_tables(graph)
+    kernels = select_kernels(
+        mesh.devices.flat[0].platform, k_in=tables.k_in, Nm=Nm
+    )
 
     def run(codes, seq_lens, steps, start, bw, init_ids, init_send,
             init_nmin, init_nend, init_min, *, S_max: int):
-        # use_pallas follows the backend (the production Mosaic cell
-        # kernel runs under shard_map on TPU meshes; CPU meshes take the
-        # XLA path) — the round-1 use_pallas=False pin is gone
-        use_pallas = (
-            jax.default_backend() != "cpu"
-            and Nm <= 32
-            and tables.k_in <= 5
+        return banded_scan(
+            *tables.device_args(), codes, seq_lens, steps, start, bw,
+            init_ids, init_send, init_nmin, init_nend, init_min,
+            S_max=S_max, Nm=Nm, Cm=Cm, cell=kernels.cell, mesh=mesh,
+            mesh_axis=axis,
         )
-        fn = functools.partial(
-            _banded_scan, S_max=S_max, Nm=Nm, Cm=Cm, use_pallas=use_pallas
-        )
-        rep = P()
-        in_specs = (
-            (rep,) * 6  # graph tables, replicated
-            + (P(axis), P(axis), P(axis), P(axis), P(None, axis))
-            + (P(axis), P(axis), P(axis), P(axis), P(axis))
-            + (rep,)  # match table
-        )
-        out_specs = {
-            "tie16": P(None, None, axis),
-            "ids_sub": P(None, axis),
-            "band_ids": P(None, None, axis),
-            "node_min": P(None, None, axis),
-            "node_end": P(None, None, axis),
-            "min_score": P(None, axis),
-            "num_cells": P(None, axis),
-            "overflow": P(None, axis),
-            "control": P(None, axis),
-            "cols": P(None, None, None, axis),
-            "sends": P(None, None, axis),
-            "lens_tab": P(None, None, axis),
-            "pred_tab": P(None, None, axis),
-            "pred_prev": P(None, None, axis),
-            "codes": P(None, None, axis),
-        }
-        try:
-            sm = shard_map(
-                fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                check_vma=False,
-            )
-        except TypeError:  # older jax spelling
-            sm = shard_map(
-                fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                check_rep=False,
-            )
-        import jax.numpy as jnp
-
-        args = tuple(jnp.asarray(a) for a in tables.device_args()) + (
-            jnp.asarray(codes),
-            jnp.asarray(seq_lens),
-            jnp.asarray(steps),
-            jnp.asarray(start),
-            jnp.asarray(bw),
-            jnp.asarray(init_ids),
-            jnp.asarray(init_send),
-            jnp.asarray(init_nmin),
-            jnp.asarray(init_nend),
-            jnp.asarray(init_min),
-            jnp.asarray(_MATCH_TABLE),
-        )
-        return jax.jit(sm)(*args)
 
     return tables, run

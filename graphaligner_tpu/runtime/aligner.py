@@ -233,6 +233,8 @@ def _align_reads_impl(
                 params, graph, fastqs, log, output_dir, device_batch
             )
         except ValueError as e:
+            if os.environ.get("GA_NO_FALLBACK") == "1":
+                raise
             log(f"device engine unavailable ({e}); falling back to oracle")
     elif backend == "jax":
         # seeded mode pipelines device chunks inside get_traces; feed it
@@ -250,6 +252,9 @@ def _align_reads_impl(
             # that silently completes 100x slower must not look green
             if os.environ.get("GA_NO_FALLBACK") == "1":
                 raise
+            from ..core import batch_align
+
+            batch_align._FALLBACKS["other"] += 1
             log("batched device pipeline failed (exception!); "
                 "falling back to the per-read host path")
             traceback.print_exc(file=sys.stderr)

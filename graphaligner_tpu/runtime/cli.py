@@ -16,7 +16,7 @@ from .aligner import align_reads
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="graphaligner-tpu", description="TPU-native sequence-to-graph aligner"
+        prog="graphaligner-tpu", description="batched sequence-to-graph aligner"
     )
     p.add_argument("-g", dest="graph_file", required=True, help="graph (.vg or .gfa)")
     p.add_argument("-f", dest="fastq_file", required=True, help="reads (.fastq/.fa)")
@@ -33,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         choices=["auto", "oracle", "jax"],
         help="slice compute backend: auto (default) = the batched device "
-        "engine whenever a jax backend initializes (TPU, else CPU), with "
+        "engine whenever a jax backend initializes (GPU, else CPU), with "
         "a loud fallback to the scalar host oracle; oracle = the scalar "
         "host spec path; jax = force the device engine",
     )

@@ -389,14 +389,14 @@ void ga_gfa_destroy(void* h) { delete (GaGfa*)h; }
 // ---------------------------------------------------------------------------
 // Backtrace move decoder (counterpart of ops/pallas/walk_moves.py).
 //
-// The TPU walk kernel emits 4-bit move codes per lockstep step; this
+// The walk kernel emits one 4-bit move code per step of a lane; this
 // replays them over the host graph to reconstruct the exact
 // (graph position, read row) trace of the reference backtrace
 // (pickBacktracePredecessor, GraphAligner.h:493-591). Emits FORWARD
 // order; the implicit row -1 terminator is dropped (getTraceFromTable,
 // GraphAligner.h:894-1021). Returns the number of steps, or -1 on a
 // malformed stream / capacity overflow.
-//   moves:   packed words, nibble t = lockstep step t
+//   moves:   packed words, nibble t = the lane's step t (0 = PAD)
 //   in_nbrs: [num_nodes * k_in], -1 padded, adjacency order
 // ---------------------------------------------------------------------------
 static int64_t ga_decode_moves_impl(

@@ -1,4 +1,4 @@
-"""End-to-end stage breakdown of the batched pipeline on the real TPU.
+"""End-to-end stage breakdown of the batched pipeline on the GPU.
 
 Wraps the phase methods of BandedBatchAligner with cumulative wall-time
 counters and runs the bench.py longsim workload (warm, then timed).

@@ -1,12 +1,11 @@
-"""Profile banded_scan per-step cost vs batch width on the real TPU.
+"""Profile banded_scan per-step cost vs batch width on the GPU.
 
 Usage: python profile_scan.py [B ...]   (default: 256 512 1024)
 
 Times one full banded_scan round (dispatch + block on every output) on
 real longsim forward-extension problems at S_max=160, reporting
 ms/step and ms/step/lane so the B-scaling of the per-step fixed cost is
-visible. All timings back-to-back in one process (machine drifts +-30%
-across processes).
+visible. All timings back-to-back in one process.
 """
 
 import os

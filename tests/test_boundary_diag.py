@@ -8,13 +8,12 @@ gated that diagonal on pred_tab's current-band valid bit and broke a
 co-optimal tie toward V instead of D — same score, different path, not
 bit-identical. tests/fixtures/ont read_590646759 at b5/B20 is the
 minimal reproducer (node 2805 leaves the band exactly at slice 140's
-boundary). This runs the PRODUCTION move-walk kernel through the
-Pallas interpreter on CPU (GA_FORCE_MOVES) and byte-compares against
-the reference golden; tests/test_ont.py re-proves the Mosaic lowering
-on the real chip.
+boundary). This runs the move-walk kernel (and the cell kernel) through
+the Pallas interpreter on CPU, asked for with interpret=True, and
+byte-compares against the reference golden; tests/test_ont.py and
+chip_smoke.py prove the compiled kernels on the GPU.
 """
 
-import os
 import pathlib
 
 import pytest
@@ -26,8 +25,7 @@ RID = "read_590646759"
 
 
 @pytest.mark.slow
-def test_boundary_diagonal_prev_only_pred(monkeypatch):
-    monkeypatch.setenv("GA_FORCE_MOVES", "1")
+def test_boundary_diagonal_prev_only_pred():
     from graphaligner_tpu.core.batch_align import (
         BandedBatchAligner,
         align_reads_seeded_batch,
@@ -44,7 +42,7 @@ def test_boundary_diagonal_prev_only_pred(monkeypatch):
         a.name: a
         for a in stream.read_messages(str(ONT / "golden_b5B20.gam"), vg.Alignment)
     }
-    ba = BandedBatchAligner(graph, 5, 20)
+    ba = BandedBatchAligner(graph, 5, 20, interpret=True)
     res = align_reads_seeded_batch(graph, ba, reads, seeds)[RID]
     assert not res.alignment_failed
     mine = vg.Alignment.decode(res.alignment.encode())

@@ -1,5 +1,5 @@
 """Chunk-width invariance: GA_CHUNK (the scan chunk-width knob used for
-TPU A/B sweeps) must never change results — tiny chunks force many
+A/B sweeps) must never change results — tiny chunks force many
 chunk boundaries through the two-deep pipeline, covering the
 cross-chunk walk/finalize paths the default width only hits at scale."""
 

@@ -136,6 +136,7 @@ def test_wavefront_backend_matches_column_backend(sim_graph, sim_reads):
     from graphaligner_tpu.core.engine import (
         _MATCH_TABLE,
         _align_batch_device,
+        build_eq_vectors,
         encode_read,
         _READ_CODE,
     )
@@ -144,7 +145,6 @@ def test_wavefront_backend_matches_column_backend(sim_graph, sim_reads):
         build_skewed_schedule,
         deskew,
     )
-    from graphaligner_tpu.ops.pallas.exhaustive import _build_eq_vectors
 
     ba = BatchAligner(sim_graph)
     B, S = 4, 3  # small: 192 rows cover the read prefixes
@@ -154,7 +154,7 @@ def test_wavefront_backend_matches_column_backend(sim_graph, sim_reads):
         codes[i, : len(s)] = encode_read(s)
     P = len(ba.sched.cell_pos)
     sk = build_skewed_schedule(ba.sched, S)
-    eq = _build_eq_vectors(codes, _MATCH_TABLE, S)
+    eq = build_eq_vectors(codes, _MATCH_TABLE, S)
     wave = deskew(
         [
             np.asarray(x)

@@ -1,13 +1,10 @@
 """30kb reads through the batched pipeline vs reference goldens.
 
 Exercises the larger compiled slice buckets (S=640) and the HBM-aware
-chunk sizing. Runs only on a real accelerator — the CPU test backend
-would take minutes per read (verified bit-identical on TPU v5e,
-2026-08-17; re-run manually with:
-  python -m pytest tests/test_giant_reads.py  # outside the CPU conftest
-)."""
-
-import os
+chunk sizing. Runs only on a GPU — the CPU test backend would take
+minutes per read:
+  JAX_PLATFORMS=cuda python -m pytest -m gpu tests/test_giant_reads.py
+"""
 
 import pytest
 
@@ -16,10 +13,7 @@ from pathlib import Path
 G = Path(__file__).parent / "fixtures" / "longsim" / "giant"
 
 
-@pytest.mark.skipif(
-    "cpu" in os.environ.get("JAX_PLATFORMS", "cpu"),
-    reason="TPU-only: 30kb scans are minutes-slow on the CPU backend",
-)
+@pytest.mark.gpu
 def test_giant_reads_match_reference(tmp_path):
     from graphaligner_tpu.core.params import AlignerParams
     from graphaligner_tpu.io import stream, vg

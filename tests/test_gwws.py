@@ -7,8 +7,8 @@ anchor nodes. Fixtures (tests/make_fixtures.py): 12 simulated ~250bp
 reads at 5% sub/ins/del with reference-binary goldens at both bandwidth
 configs. Every alignment must be bit-identical after id÷2, through BOTH
 the host spec path (align_one_way_seeded) and the batched device
-pipeline (align_reads_seeded_batch, CPU interpreter here; verify_tpu.py
-re-runs the suite's goldens on the real chip).
+pipeline (align_reads_seeded_batch, the XLA path on CPU here;
+chip_smoke.py re-runs the goldens on the GPU).
 """
 
 import pathlib

@@ -1,8 +1,9 @@
-"""Memory-bounded long-read mode (VERDICT r1 item 6): chained scan
-windows with dropped columns + the windowed recompute walk must produce
-byte-identical results to the single-window path. CPU variant forces a
-tiny window so every piece (chaining, boundary stash, state-continued
-walk kernel in interpreter mode, stream concat decode) runs in CI."""
+"""Memory-bounded long-read mode: chained scan windows with dropped
+columns + the windowed recompute walk must produce byte-identical
+results to the single-window path. The CPU tests force a tiny window so
+every piece (chaining, boundary stash, the state-continued walk kernel
+and cell kernel in explicit interpreter mode, stream concat decode)
+runs in CI, against the single-window XLA path."""
 
 import os
 
@@ -30,7 +31,7 @@ def test_windowed_long_mode_matches_normal_cpu():
     normal = BandedBatchAligner(graph, 35, 0)
     res_n = align_reads_seeded_batch(graph, normal, reads, seeds)
 
-    long_al = BandedBatchAligner(graph, 35, 0)
+    long_al = BandedBatchAligner(graph, 35, 0, interpret=True)
     long_al.LONG_WINDOW = 48  # force windowing on these ~157-slice reads
     res_l = align_reads_seeded_batch(graph, long_al, reads, seeds)
 
@@ -68,7 +69,7 @@ def test_long_mode_ramping_rewinds_match_normal():
     res_n = align_reads_seeded_batch(graph, normal, reads, seeds)
 
     rw0 = _ba.rewind_count()
-    long_al = BandedBatchAligner(graph, 5, 20)
+    long_al = BandedBatchAligner(graph, 5, 20, interpret=True)
     long_al.LONG_WINDOW = 48
     res_l = align_reads_seeded_batch(graph, long_al, reads, seeds)
     assert _ba.rewind_count() > rw0  # the scenario actually fired
@@ -81,10 +82,7 @@ def test_long_mode_ramping_rewinds_match_normal():
         assert a.alignment.encode() == b.alignment.encode(), r.seq_id
 
 
-@pytest.mark.skipif(
-    "cpu" in os.environ.get("JAX_PLATFORMS", "cpu"),
-    reason="TPU-only: 1Mbp scans are hours-slow on the CPU backend",
-)
+@pytest.mark.gpu
 @pytest.mark.parametrize("bandwidth,ramp,golden", [
     (35, 0, "golden_b35.gam"),
     (5, 20, "golden_b5B20.gam"),
@@ -126,15 +124,11 @@ def test_1mbp_reads_match_reference(bandwidth, ramp, golden):
         assert mine == gold[r.seq_id], f"{r.seq_id}: differs from reference"
 
 
-@pytest.mark.skipif(
-    "cpu" in os.environ.get("JAX_PLATFORMS", "cpu"),
-    reason="TPU-only: 100kb scans are minutes-slow on the CPU backend",
-)
+@pytest.mark.gpu
 def test_100kb_reads_match_reference(tmp_path):
     """100kb reads (1560+ slices, windowed long mode on by default) vs
     the reference binary's alignments on a 480kb synthetic variation
-    graph (tests/make_fixture_100k.py). Verified bit-identical on TPU
-    v5e 2026-08-17; re-run manually outside the CPU conftest."""
+    graph (tests/make_fixture_100k.py)."""
     from graphaligner_tpu.core.params import AlignerParams
     from graphaligner_tpu.io import stream, vg
     from graphaligner_tpu.runtime.aligner import align_reads

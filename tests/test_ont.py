@@ -5,12 +5,11 @@ flags slices wrong constantly, so bandwidth ramping rewinds fire
 throughout — the ramping-heavy path no other fixture stresses at
 scale. Byte-identical to the reference binary at both configs.
 
-TPU-gated (10kb reads are minutes-slow per read on the CPU backend);
-verify_tpu.py runs the same corpus as part of the default round gate.
+GPU-gated (10kb reads are minutes-slow per read on the CPU backend);
+chip_smoke.py runs the b5/B20 config as part of its golden phase.
 Fixture: tests/make_fixture_ont.py.
 """
 
-import os
 import pathlib
 
 import pytest
@@ -19,10 +18,7 @@ ONT = pathlib.Path(__file__).parent / "fixtures" / "ont"
 LS = pathlib.Path(__file__).parent / "fixtures" / "longsim"
 
 
-@pytest.mark.skipif(
-    "cpu" in os.environ.get("JAX_PLATFORMS", "cpu"),
-    reason="TPU-only: 10kb ONT-error scans are minutes-slow on CPU",
-)
+@pytest.mark.gpu
 @pytest.mark.parametrize("bandwidth,ramp,golden", [
     (35, 0, "golden_b35.gam"),
     (5, 20, "golden_b5B20.gam"),

@@ -1,4 +1,4 @@
-"""Scan-phase cost decomposition on the real chip: times ONE banded
+"""Scan-phase cost decomposition on the GPU: times ONE banded
 scan round (dispatch -> control ready) under the GA_ABLATE switches,
 back-to-back in one process, so the slice step's fixed costs can be
 attributed (projection / fixpoint / cell kernel / the rest).
@@ -50,16 +50,16 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
-    from profile_battery import _load, _tile
+    from bench import load_corpus, tile_reads
     from graphaligner_tpu.core.batch_align import BandedBatchAligner
 
     corpus = argv[0] if argv else "longsim"
     n_reads = int(argv[1]) if len(argv) > 1 else 200
     reps = int(argv[2]) if len(argv) > 2 else 3
 
-    graph, reads, seeds = _load(corpus)
+    graph, reads, seeds = load_corpus(corpus)
     tile = max(1, -(-n_reads // len(reads)))
-    reads, seeds = _tile(reads, seeds, tile)
+    reads, seeds = tile_reads(reads, seeds, tile)
     reads = reads[:n_reads]
     problems = build_problems(graph, reads, seeds)
     print(json.dumps({"corpus": corpus, "reads": len(reads),
